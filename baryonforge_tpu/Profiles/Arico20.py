@@ -1,4 +1,4 @@
-"""Arico et al. 2020 (BACCO) baryonification family, TPU-native.
+"""Arico et al. 2020 (BACCO) baryonification family, in JAX.
 
 Physics parity with reference Profiles/Arico20.py (citations per class).
 Distinctives vs Schneider19: profiles truncated at R200c (r_max_int=10,

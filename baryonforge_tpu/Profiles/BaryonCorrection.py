@@ -1,7 +1,8 @@
 """Displacement model: Baryonification2D / Baryonification3D.
 
 Reference: Profiles/BaryonCorrection.py. The table build — the expensive
-"init" of the whole pipeline (SURVEY.md §3.2) — is re-designed for TPU:
+"init" of the whole pipeline (SURVEY.md §3.2) — is re-designed as
+fixed-shape array programs:
 
   * enclosed-mass curves for all (z, M) at once (batched cumulative Simpson)
   * the reference's data-dependent monotonicity-masking while-loop
@@ -228,8 +229,8 @@ class BaryonificationClass:
 
     def with_dtype(self, dtype):
         """Shallow copy with the lookup table cast to ``dtype`` — the
-        runner hot path reads the table in f32 on TPU (the table itself is
-        built in f64; the readout interpolation does not need f64)."""
+        per-pixel readouts of the scatter path run in f32 (the table
+        itself is built in f64)."""
         import copy
         new = copy.copy(self)
         new._axes = tuple(a.astype(dtype) for a in self._axes)
@@ -308,10 +309,9 @@ class BaryonificationClass:
         x = (jnp.log(jnp.maximum(r, 1e-30)) - ln_r0) / dlnr
         i = jnp.clip(jnp.floor(x).astype(jnp.int32), 0, n_r - 2)
         t = x - i
-        # one slice-2 gather instead of two element gathers: TPU gather
-        # cost is per index, so pairing the bracketing samples (static
-        # slices + stack, built once per curve, not per lookup) runs ~3x
-        # faster at phase-A scale (billions of lookups at NSIDE=4096)
+        # one slice-2 gather instead of two element gathers: the
+        # bracketing samples are paired once per curve (static slices +
+        # stack), not per lookup
         c2 = jnp.stack([curve[..., :-1], curve[..., 1:]], axis=-1)
         pair = c2[i]
         out = pair[..., 0] * (1 - t) + pair[..., 1] * t

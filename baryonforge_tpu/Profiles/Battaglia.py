@@ -1,4 +1,4 @@
-"""Battaglia et al. 2012 pressure / gas-density calibrations, TPU-native.
+"""Battaglia et al. 2012 pressure / gas-density calibrations, in JAX.
 
 Reference: Profiles/Battaglia.py (plain profiles, not family-based).
 Calibrations '200_AGN' / '500_AGN' / '500_SH' for pressure and

@@ -1,4 +1,4 @@
-"""Mead et al. 2020 (HMx) model family, TPU-native.
+"""Mead et al. 2020 (HMx) model family, in JAX.
 
 Physics parity with reference Profiles/Mead20.py. Distinctives: Gaussian
 stellar fraction in log10 M (Mead20.py:93-111), bound fraction

@@ -1,4 +1,4 @@
-"""Schneider et al. 2019 baryonification model family, TPU-native.
+"""Schneider et al. 2019 baryonification model family, in JAX.
 
 Physics parity with reference Profiles/Schneider19.py (cited per class); the
 implementation is redesigned as batched jnp: per-halo normalization loops

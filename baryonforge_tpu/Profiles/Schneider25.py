@@ -1,4 +1,4 @@
-"""Schneider et al. 2025 model family, TPU-native.
+"""Schneider et al. 2025 model family, in JAX.
 
 Physics parity with reference Profiles/Schneider25.py. Distinctives:
 nu-dependent truncation eps(nu) = eps0 + eps1 nu (Schneider25.py:273-275),

@@ -1,7 +1,10 @@
 """Native C++ kernels: CPU reference deposits + cell-list neighbour search.
 
-Compiled on demand with g++ (cached .so next to the source) and bound via
-ctypes — the build image ships no pybind11. These provide:
+Compiled on demand with g++ and bound via ctypes — the build image ships no
+pybind11. The library is built with ``-march=native``, so its file name
+carries a digest of the source and of the host CPU (:func:`host_key`): a
+tree copied from another machine rebuilds from ``kernels.cpp`` instead of
+loading a library built for a different instruction set. These provide:
 
   * independent cross-checks of the XLA scatter/deposit kernels
   * a CPU fall-back execution path
@@ -10,7 +13,9 @@ ctypes — the build image ships no pybind11. These provide:
 """
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import warnings
 
@@ -18,15 +23,40 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "kernels.cpp")
-_SO = os.path.join(_HERE, "_kernels.so")
 
 _lib = None
 
 
-def _build():
+def host_key():
+    """Digest of what a ``-march=native`` build depends on: the source,
+    the machine architecture and the CPU's model and feature flags."""
+    dg = hashlib.blake2b(digest_size=8)
+    with open(_SRC, "rb") as f:
+        dg.update(f.read())
+    dg.update(platform.machine().encode())
+    try:
+        with open("/proc/cpuinfo") as f:
+            cpu = [ln for ln in f
+                   if ln.startswith(("model name", "flags", "Features"))]
+    except OSError:
+        cpu = [platform.processor()]
+    dg.update("".join(sorted(set(cpu))).encode())
+    return dg.hexdigest()
+
+
+def lib_path():
+    """Where this host's build of the library lives."""
+    return os.path.join(_HERE, f"_kernels-{host_key()}.so")
+
+
+def _build(path):
+    # build under a private name, then rename: concurrent importers
+    # (test workers) never load a half-written library
+    tmp = f"{path}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-           "-o", _SO, _SRC]
+           "-o", tmp, _SRC]
     subprocess.run(cmd, check=True, capture_output=True)
+    os.replace(tmp, path)
 
 
 def get_lib():
@@ -35,10 +65,10 @@ def get_lib():
     if _lib is not None:
         return _lib
     try:
-        if (not os.path.exists(_SO)
-                or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-            _build()
-        lib = ctypes.CDLL(_SO)
+        path = lib_path()
+        if not os.path.exists(path):
+            _build(path)
+        lib = ctypes.CDLL(path)
     except Exception as e:          # no g++ / load failure: degrade
         warnings.warn(f"native kernels unavailable ({e}); "
                       "falling back to pure JAX/numpy paths")
@@ -117,7 +147,7 @@ def cell_query_counts(positions, L, centers, radii):
 
     Lets callers bucket queries by count and re-query each bucket with its
     own pad — a global-max pad would let one dense halo inflate the
-    (nq, pad) index array for everyone (VERDICT r3 weak #5)."""
+    (nq, pad) index array for everyone."""
     lib = get_lib()
     positions = np.ascontiguousarray(np.mod(positions, L), dtype=np.float64)
     centers = np.ascontiguousarray(np.mod(centers, L), dtype=np.float64)

@@ -1,6 +1,6 @@
 """FFTLog: fast Hankel / spherical-Bessel transforms on log-uniform grids.
 
-TPU-native replacement for the FFTLog machinery the reference delegates to CCL
+A JAX replacement for the FFTLog machinery the reference delegates to CCL
 (``ccl.halos.profiles.HaloProfile._fftlog_wrap``; see reference Base.py:126-130
 for how profiles tune ``plaw_fourier`` and paddings). Used for:
 
@@ -14,12 +14,11 @@ int_0^inf x^s J_mu(k x) dx = k^-(s+1) 2^s Gamma((mu+1+s)/2)/Gamma((mu+1-s)/2).
 
 Everything is jit-friendly: static shapes, no data-dependent control flow.
 
-TPU note: XLA:TPU has no complex128 FFT (and complex64 would lose the
-precision the displacement tables need), so the whole pipeline is written
-in explicit (re, im) float64 *pair* arithmetic, and the DFTs are matmuls
-against precomputed cos/sin matrices. The grids here are short (N <= ~2k),
-so the O(N^2) matmul is both faster than an emulated FFT would be and lands
-on the MXU; f64 runs on TPU via XLA's software emulation.
+The pipeline is written in explicit (re, im) float64 *pair* arithmetic
+(complex64 would lose the precision the displacement tables need), and
+the DFTs are f64 matmuls against precomputed cos/sin matrices. The grids
+here are short (N <= ~2k), so the O(N^2) matmul is cheap; whether a
+complex128 FFT is faster on the GPU is not yet measured.
 """
 
 import jax
@@ -84,8 +83,7 @@ def _log_sin_pi(zr, zi):
     """log(sin(pi (zr + i zi))), overflow-safe for large |zi|.
 
     The naive sin formula needs cosh/sinh(pi zi), which overflows for
-    |zi| >~ 230 in IEEE f64 and far earlier on TPU (f64 emulation has a
-    reduced exponent range). For |zi| > 1 use the asymptotic-exact form
+    |zi| >~ 230 in IEEE f64. For |zi| > 1 use the asymptotic-exact form
       log sin(pi z) = pi|zi| - ln 2 + i sgn(zi)(pi/2 - pi zr)
                       + log(1 - e^{2 i pi zr - 2 pi |zi|})
     whose correction term is tiny and cancellation-free.
@@ -108,7 +106,7 @@ def _log_sin_pi(zr, zi):
 def _loggamma_pair(zr, zi):
     """Principal-branch log Gamma of zr + i zi via Lanczos + reflection.
 
-    Pure real f64 arithmetic (TPU-safe). Not valid exactly at non-positive
+    Pure real f64 arithmetic. Not valid exactly at non-positive
     integers (poles), which never occur for FFTLog kernel arguments.
     """
     reflect = zr < 0.5
@@ -141,7 +139,7 @@ def loggamma(z):
 
 
 # ---------------------------------------------------------------------------
-# Matmul DFT (TPU-safe complex-pair FFT replacement; N is small and static)
+# Matmul DFT (complex-pair FFT replacement; N is small and static)
 # ---------------------------------------------------------------------------
 def _dft_mats(N):
     """cos/sin DFT matrices W[j, m] = cos/sin(2 pi j m / N), exact phases."""
@@ -166,9 +164,7 @@ def _u_coefficients(N, dln, mu, q, ln_k0x0):
 
     ``ln_k0x0`` is log(k0 x0) — passed in log space because the phase
     omega * ln(k0 x0) reaches thousands of radians and needs the full f64
-    log. (TPU computes *scalar* f64 transcendentals at ~f32 precision —
-    only array-shaped ops run the accurate vector path — so callers must
-    derive this from an array log.)
+    log (callers derive it from an f64 array log).
     """
     m = jnp.fft.fftfreq(N) * N                      # signed integer freqs
     omega = 2.0 * jnp.pi * m / (N * dln)
@@ -199,10 +195,9 @@ def fht(x, a, mu, q=0.0, kcrc=1.0):
     """
     N = x.shape[0]
     q = _safe_q(mu, q)
-    # ALL log-space scalars must come from an array log: TPU scalar f64
-    # transcendentals run at ~f32 precision and the FFTLog phase
-    # omega * ln(k0 x0) (thousands of radians) amplifies that to O(1e-6)
-    # errors in the kernel coefficients.
+    # ALL log-space scalars come from an f64 array log: the FFTLog phase
+    # omega * ln(k0 x0) (thousands of radians) amplifies any f32-grade
+    # rounding to O(1e-6) errors in the kernel coefficients.
     lx = jnp.log(x)
     dln = (lx[-1] - lx[0]) / (N - 1)
     if isinstance(kcrc, (int, float)):

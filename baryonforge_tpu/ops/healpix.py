@@ -1,7 +1,6 @@
 """Native HEALPix (RING scheme) geometry in JAX.
 
-Integer math is int32 throughout (valid for NSIDE <= 8192): int64 is
-software-emulated on TPU and was a measured hot-path cost.
+Integer math is int32 throughout (valid for NSIDE <= 8192).
 
 The reference delegates all sphere pixelization to healpy (C++):
 ``ang2vec/pix2vec/query_disc/get_interp_weights`` (Runners/HealpixRunner.py).
@@ -45,7 +44,7 @@ def ring_info(nside, i, dtype=jnp.float64):
 
     Returns (start_pixel, n_in_ring, z_ring, shifted) where ``shifted`` is
     1.0 if pixel centers sit at phi = (j + 0.5) * dphi and 0.0 otherwise.
-    Float outputs are computed in ``dtype`` (f32 for the TPU hot path).
+    Float outputs are computed in ``dtype`` (f32 for the hot path).
     """
     i = jnp.asarray(i)
     N = nside

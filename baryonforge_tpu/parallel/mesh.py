@@ -10,7 +10,9 @@ __all__ = ["halo_mesh", "SimpleParallel", "SplitJoinParallel"]
 def halo_mesh(n_devices=None):
     """1D device mesh with a 'halos' axis (data-parallel over halo batches).
 
-    Collectives ride ICI: per-device partial maps are psum-reduced.
+    Per-device partial maps are psum-reduced over the mesh. The mesh is
+    flat: it assumes every device reaches every other one directly, as
+    NVLink joins the GPUs of one host, and follows no torus.
     """
     devs = jax.devices()
     if n_devices is not None:
@@ -61,7 +63,7 @@ class SplitJoinParallel:
     """Split one Paint-type runner's halo catalog across the device mesh and
     sum the partial maps (reference Parallelize.py:116-320).
 
-    On TPU this is exactly the runner's own ``mesh`` mode — this class wraps
+    This is exactly the runner's own ``mesh`` mode — this class wraps
     it for API parity: it attaches a mesh to a copy of the runner. Only
     linear-sum (Paint) runners are splittable, as in the reference
     (Parallelize.py:206-209); Baryonify runners accept a mesh natively since

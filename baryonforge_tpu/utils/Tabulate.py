@@ -78,12 +78,18 @@ class TabulatedProfile:
 
         interp3D = np.zeros([z_range.size, M_range.size, r.size])
         interp2D = np.zeros_like(interp3D)
+
+        # one compiled kernel swept over z: op-by-op dispatch of the
+        # profile math costs more than the math itself on an accelerator
+        @jax.jit
+        def one_z(a_j):
+            return (self.model.real(self.cosmo, r, M_range, a_j),
+                    self.model.projected(self.cosmo, r, M_range, a_j) * a_j)
+
         for j, z in enumerate(z_range):
-            a_j = 1.0 / (1.0 + z)
-            interp3D[j] = np.asarray(
-                self.model.real(self.cosmo, r, M_range, a_j))
-            interp2D[j] = np.asarray(
-                self.model.projected(self.cosmo, r, M_range, a_j)) * a_j
+            real, proj = one_z(1.0 / (1.0 + z))
+            interp3D[j] = np.asarray(real)
+            interp2D[j] = np.asarray(proj)
 
         self.raw_input_3D = np.log(interp3D)
         self.raw_input_2D = np.log(interp2D)

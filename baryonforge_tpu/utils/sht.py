@@ -1,12 +1,12 @@
 """Spherical-harmonic analysis of RING-ordered HEALPix maps.
 
-TPU-native replacement for the ``healpy.anafast`` step of the reference's
+A JAX replacement for the ``healpy.anafast`` step of the reference's
 Delta-Cl validation workflows (reference examples
 09_Reproduce_Schneider_deltaCls.ipynb; the reference package itself
 delegates all SHT to healpy). Exploits the RING layout the way libsharp
 does: each iso-latitude ring has uniformly spaced phi centers, so the
-m-transform per ring is a DFT (here a cos/sin matmul — no complex dtypes,
-TPU-safe, see ops/fftlog.py for why), and the colatitude transform is an
+m-transform per ring is a DFT (here a cos/sin matmul in real arithmetic),
+and the colatitude transform is an
 associated-Legendre recurrence over l at fixed m.
 
 a_lm = sum_rings  P_lm(z_r) * [Omega_p * sum_{j in ring} map_j e^{-i m phi_j}]
@@ -24,6 +24,8 @@ import jax
 import jax.numpy as jnp
 
 __all__ = ["ring_alm_real", "anafast"]
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _ring_geometry(nside):
@@ -70,8 +72,9 @@ def _ring_modes(nside, hmap, lmax, ring_batch=8):
     def per_ring(args):
         vals, dp, p0 = args
         ang = m[:, None] * (j[None, :] * dp)            # (L, nmax)
-        cr = jnp.cos(ang) @ vals
-        ci = -(jnp.sin(ang) @ vals)
+        # HIGHEST: an f32 map must not get a TF32 (10-bit) product
+        cr = jnp.matmul(jnp.cos(ang), vals, precision=_HIGHEST)
+        ci = -jnp.matmul(jnp.sin(ang), vals, precision=_HIGHEST)
         c0, s0 = jnp.cos(m * p0), jnp.sin(m * p0)       # shift by phi0
         return cr * c0 + ci * s0, ci * c0 - cr * s0
 

@@ -5,7 +5,7 @@ The driver's primary metric names "map and ΔCl parity vs the CPU
 reference" (BASELINE.json); these pipelines are the machinery behind the
 nightly golden tests (tests/test_deltacl.py, tests/test_deltapk_golden.py)
 AND behind ``tools/parity.py``, which writes the per-round ``PARITY.json``
-artifact (VERDICT r4 order #6). Everything here is self-contained
+artifact. Everything here is self-contained
 synthetic-box / synthetic-shell physics:
 
 * halos sampled from the Tinker08 mass function above the reference's

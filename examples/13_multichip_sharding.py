@@ -1,9 +1,9 @@
 """Example: multi-chip halo-parallel execution over a JAX device mesh
-(the TPU-native analog of the reference's joblib SplitJoinParallel,
+(the analog of the reference's joblib SplitJoinParallel,
 utils/Parallelize.py:218-320).
 
 The halo batch axis is sharded over the mesh's 'halos' axis with
-jax.shard_map; per-device partial maps are psum-reduced over ICI. On a CPU
+jax.shard_map; per-device partial maps are psum-reduced. On a CPU
 host this demos with 8 virtual devices:
 
 Run: XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \

@@ -1,8 +1,8 @@
 """Data-cache invalidation: runners key their prepared-batch / tile-bucket
 / uploaded-map / curve caches on CONTENT tokens, so in-place mutation of a
 catalog or map between process() calls, or swapping the model on a live
-runner, must give the same result as a freshly built runner (VERDICT r4
-order #7; the reference rebuilds everything per Runner construction,
+runner, must give the same result as a freshly built runner (the
+reference rebuilds everything per Runner construction,
 HealpixRunner.py:235-373, so it has no such staleness surface)."""
 
 import numpy as np

@@ -118,7 +118,7 @@ def test_combined_hyper_params_take_superset():
     """Profile algebra merges integration knobs per the min/max table
     (reference utils/misc.py:261-336 policy): the combined profile's
     grid must cover BOTH operands' requirements, not silently keep
-    operand A's (VERDICT r4 weak #7)."""
+    operand A's."""
     A = Profiles.Gas(**bpar_S19, r_steps=100, r_min_int=1e-5,
                      r_max_int=100.0, n_per_decade_proj=8)
     B = Profiles.Stars(**bpar_S19, r_steps=400, r_min_int=1e-7,

@@ -80,7 +80,7 @@ def test_baryonification_suppresses_cl():
 @pytest.mark.slow
 def test_deltacl_limber_vs_s19_fig2():
     """Quantitative Delta-Cl against the digitized S19 Fig. 2 suppression
-    via the thin-shell Limber mapping (VERDICT r3 order #4).
+    via the thin-shell Limber mapping.
 
     Derivation: for a single thin shell at comoving distance chi_bar with
     width dchi << chi_bar, Limber gives
@@ -113,8 +113,7 @@ def test_deltacl_limber_vs_s19_fig2():
 
 @pytest.mark.slow
 def test_deltacl_limber_nside512_tightens():
-    """The NSIDE=512 Limber point at the same k values (VERDICT r4 order
-    #8): the k=1.4 h/Mpc residual must shrink below the NSIDE=256 value
+    """The NSIDE=512 Limber point at the same k values: the k=1.4 h/Mpc residual must shrink below the NSIDE=256 value
     (+0.0381 in the 2026-08 calibration), confirming that residual is
     pixel smoothing — not physics — and protecting the headline parity
     margin. Calibration run (2026-08-19, NSIDE=512): residuals

@@ -152,3 +152,28 @@ def test_paint_grid_2d_pixel_size_factor():
                              include_pixel_size=True,
                              halo_batch=4).process()
     np.testing.assert_allclose(out2, out1 * gm.res ** 2, rtol=1e-12)
+
+
+def test_grid_buckets_with_equal_shapes_keep_their_cutouts():
+    """Two size buckets whose padded batches share a shape but not a
+    cutout size must not share a compiled kernel: the large halos would
+    be displaced inside the small cutout. Far from the small halos, the
+    two-bucket run must equal a run of the large halos alone."""
+    gm = _grid_map(64, 256.0, is2D=False)
+    x = np.array([30.0, 90.0, 150.0, 210.0])
+
+    def cat(big_only):
+        xs = x if big_only else np.concatenate([x, x])
+        ys = np.full(4, 64.0) if big_only else np.repeat([64.0, 192.0], 4)
+        M = np.full(4, 1e15) if big_only else np.repeat([1e15, 1e13], 4)
+        return utils.HaloNDCatalog(x=xs, y=ys, z=np.full(xs.size, 128.0),
+                                   M=M, redshift=0.2, cosmo=COSMO_DICT)
+
+    both = BaryonifyGrid(cat(False), gm, epsilon_max=20, model=MODEL3D,
+                         halo_batch=4, n_size_buckets=2).process()
+    big = BaryonifyGrid(cat(True), gm, epsilon_max=20, model=MODEL3D,
+                        halo_batch=4, n_size_buckets=1).process()
+    half = slice(0, 32)                        # y < 128: large halos only
+    assert not np.allclose(big[:, half], gm.map[:, half])
+    np.testing.assert_allclose(both[:, half], big[:, half], rtol=0,
+                               atol=1e-9 * np.abs(big).max())

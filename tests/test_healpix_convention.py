@@ -1,7 +1,7 @@
 """RING-convention pinning for ops/healpix.
 
-healpy is not installable in this environment (VERDICT asked for vendored
-healpy goldens; the strongest available substitutes are below):
+healpy is not installable in this environment (vendored healpy goldens
+would be the ideal; the strongest available substitutes are below):
 
  1. literal NSIDE=1 and NSIDE=2 pixel-center tables written out from the
     geometric HEALPix definition (rings of 4/8/... pixels at

@@ -216,3 +216,45 @@ def test_transfer_sparse_matches_dense_paint():
                                             halo_batch=32, transfer=mode)
         maps[mode] = runner.process()
     np.testing.assert_array_equal(maps["dense"], maps["sparse"])
+
+
+def test_scatter_buckets_with_equal_shapes_keep_their_windows():
+    """Two size buckets whose padded batches share a shape (same halo
+    count, same batch size) but not a disc window must not share a
+    compiled kernel: the large discs would be cut to the small window.
+    The scatter deposit must then agree with the tiled one."""
+    n = 16
+    ra = np.linspace(0, 337.5, n)
+    dec = np.tile([-20.0, 20.0], n // 2)
+    M = np.where(np.arange(n) % 2 == 0, 1e13, 2e15)
+    cat = utils.HaloLightConeCatalog(ra=ra, dec=dec, M=M,
+                                     z=np.full(n, 0.2), cosmo=COSMO_DICT)
+    raw = RNG.exponential(1.0, NPIX)
+    outs = {}
+    for dep in ("scatter", "auto"):
+        shell = utils.LightconeShell(map=raw.copy(), cosmo=COSMO_DICT)
+        outs[dep] = Runners.BaryonifyShell(
+            cat, shell, epsilon_max=20, model=MODEL, halo_batch=8,
+            n_size_buckets=2, deposit=dep, regrid="scatter",
+            verbose=False).process()
+    ref = outs["auto"]
+    assert np.abs(outs["scatter"] - ref).max() / np.abs(ref).max() < 1e-3
+
+
+def test_runner_follows_callers_default_device():
+    """process() dispatches and fetches on worker threads; the caller's
+    jax.default_device still decides where the runner's arrays live."""
+    import jax
+    dev = jax.devices()[1]
+    shell = utils.LightconeShell(map=RNG.exponential(1.0, NPIX),
+                                 cosmo=COSMO_DICT)
+    runner = Runners.BaryonifyShell(CATALOG, shell, epsilon_max=20,
+                                    model=MODEL, halo_batch=32,
+                                    verbose=False)
+    with jax.default_device(dev):
+        out = runner.process()
+    placed = [v for k, v in runner._compiled.items()
+              if isinstance(k, tuple) and k[0] == "origmap"]
+    assert placed and placed[0].devices() == {dev}
+    np.testing.assert_allclose(out.sum(), np.asarray(shell.map).sum(),
+                               rtol=1e-8)

@@ -15,6 +15,32 @@ def test_native_builds():
     assert lib is not None, "g++ build of native kernels failed"
 
 
+def test_native_rebuilds_for_another_host(tmp_path, monkeypatch):
+    """A library built on another host (another key) is never loaded:
+    the file name follows the source and the CPU, and a missing name is
+    built from kernels.cpp."""
+    src = tmp_path / "kernels.cpp"
+    src.write_bytes(open(native._SRC, "rb").read())
+    monkeypatch.setattr(native, "_HERE", str(tmp_path))
+    monkeypatch.setattr(native, "_SRC", str(src))
+    monkeypatch.setattr(native, "_lib", None)
+    # a foreign build under the old fixed name and under another host key
+    (tmp_path / "_kernels.so").write_bytes(b"not a library")
+    (tmp_path / "_kernels-0000000000000000.so").write_bytes(b"foreign")
+    key = native.host_key()
+    assert key != "0000000000000000"
+    assert native.lib_path() == str(tmp_path / f"_kernels-{key}.so")
+    assert native.get_lib() is not None
+    assert (tmp_path / f"_kernels-{key}.so").stat().st_size > 1000
+    # another CPU, or an edited source, gives another name
+    monkeypatch.setattr(native.platform, "machine", lambda: "other-arch")
+    assert native.host_key() != key
+    monkeypatch.undo()
+    src.write_text(src.read_text() + "\n// edit\n")
+    monkeypatch.setattr(native, "_SRC", str(src))
+    assert native.host_key() != key
+
+
 def test_deposit_2d_native_vs_xla():
     N = 32
     pos = RNG.uniform(-10, 50, (500, 2))

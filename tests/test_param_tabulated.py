@@ -91,7 +91,7 @@ def test_param_tabulated_halo_curves_match_readout():
 
 
 def test_paint_p_keys_tiled_matches_scatter():
-    # VERDICT r3 order #2: tiled == scatter for a ParamTabulatedProfile
+    # tiled == scatter for a ParamTabulatedProfile
     # paint (raw curves; the p_keys column collapses into the curves)
     cat = _catalog_with_eps(24)
     prof = Profiles.DarkMatter(**{**bpar_S19}, proj_cutoff=100)
@@ -119,7 +119,7 @@ def test_paint_p_keys_tiled_matches_scatter():
 
 @pytest.mark.slow
 def test_baryonify_p_keys_tiled_matches_scatter():
-    # VERDICT r3 order #2: tiled == scatter for a p_keys displacement run
+    # tiled == scatter for a p_keys displacement run
     n = 24
     cat = utils.HaloLightConeCatalog(
         ra=RNG.uniform(0, 360, n),

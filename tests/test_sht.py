@@ -56,3 +56,27 @@ def test_constant_map_is_monopole():
     assert cl[0] == pytest.approx(4 * np.pi * 2.5 ** 2, rel=1e-10)
     # pixel centers are not an exact quadrature: tiny even-l leakage
     assert np.abs(cl[1:]).max() < 1e-5 * cl[0]
+
+
+def test_ring_modes_f32_map_at_highest_precision():
+    """The per-ring m-transform of an f32 map asks for HIGHEST matmul
+    precision (a TF32 product keeps a 10-bit mantissa on GPUs) and agrees
+    with the f64 transform to f32 rounding."""
+    import jax
+    import jax.numpy as jnp
+    nside, lmax = 8, 23
+    m64 = RNG.standard_normal(12 * nside * nside)
+    m32 = jnp.asarray(m64, dtype=jnp.float32)
+    jaxpr = str(jax.make_jaxpr(
+        lambda m: sht._ring_modes(nside, m, lmax))(m32))
+    assert jaxpr.count("dot_general") >= 2
+    assert "precision=None" not in jaxpr
+    assert jaxpr.count("Precision.HIGHEST") >= 2
+    fr32, fi32 = sht._ring_modes(nside, m32, lmax)
+    fr64, fi64 = sht._ring_modes(nside, jnp.asarray(m64), lmax)
+    assert fr32.dtype == jnp.float32
+    scale = float(np.abs(np.asarray(fr64)).max())
+    np.testing.assert_allclose(np.asarray(fr32), np.asarray(fr64),
+                               atol=1e-5 * scale, rtol=0)
+    np.testing.assert_allclose(np.asarray(fi32), np.asarray(fi64),
+                               atol=1e-5 * scale, rtol=0)

@@ -106,42 +106,74 @@ def test_flat_view_matches_slot_index(nside, rb, k):
     np.testing.assert_array_equal(got, ref)
 
 
-def test_hat_lookup_matches_gather():
-    """Every TPU-native lookup form (hat contraction, first-difference
-    clamp expansion, one-hot MXU) and the gather lerp are the same
-    piecewise-linear interpolation; validate on the kernel surface
-    (CPU runs all of them)."""
-    import jax.numpy as jnp
-    from baryonforge_tpu.ops.tiles import make_tile_deposit
-
-    nside = 32
+def _paint_case(nside=32, n=24, n_r=16):
+    """A tiling, its buckets and a paint-mode halo pack on random discs."""
     t = SkyTiling(nside, ring_block=8, seg_slots=18)
-    n, n_r = 24, 16
     theta = np.arccos(RNG.uniform(-1, 1, n))
     phi = RNG.uniform(0, 2 * np.pi, n)
     radius = RNG.uniform(0.05, 0.3, n)
     tiles, halos = bin_halos_to_tiles(t, theta, phi, radius)
-    buckets = bucket_tiles(tiles, halos)
-
     st, ct = np.sin(theta), np.cos(theta)
-    pack = dict(
-        vh=jnp.asarray(np.stack([st * np.cos(phi), st * np.sin(phi), ct],
-                                axis=1)),
-        crit2=jnp.asarray((2 * np.sin(radius / 2)) ** 2, dtype=jnp.float32),
-        lnDa=jnp.asarray(RNG.uniform(3, 5, n), dtype=jnp.float32),
-        afac=jnp.asarray(np.ones(n), dtype=jnp.float32),
-        invD=jnp.asarray(np.full(n, 1e-3), dtype=jnp.float32),
-        curves=jnp.asarray(RNG.standard_normal((n, n_r)),
-                           dtype=jnp.float32),
-    )
+    vh = np.stack([st * np.cos(phi), st * np.sin(phi), ct], axis=1)
+    host = dict(vh=vh, crit2=(2 * np.sin(radius / 2)) ** 2,
+                lnDa=RNG.uniform(3, 5, n), afac=RNG.uniform(0.5, 2, n),
+                curves=RNG.standard_normal((n, n_r)))
+    pack = {k: jnp.asarray(v, dtype=jnp.float64 if k == "vh"
+                           else jnp.float32) for k, v in host.items()}
+    pack["invD"] = jnp.full(n, 1e-3, dtype=jnp.float32)
+    return t, bucket_tiles(tiles, halos), host, pack
+
+
+def test_tile_lookup_matches_numpy_lerp():
+    """The tile kernel's per-pair curve lookup is exact linear
+    interpolation: the paint sum of every slot equals a float64 numpy
+    reference built from np.interp on the same pairs."""
+    from baryonforge_tpu.ops.tiles import make_tile_deposit
+
+    n_r, ln_r0, inv_dlnr = 16, 0.0, 4.0
+    t, buckets, host, pack = _paint_case(n_r=n_r)
+    run = make_tile_deposit(t, n_r, mode="paint")
+    grid = np.arange(n_r)
+    checked = 0
+    for b in buckets:
+        tids, out = run(b, pack, ln_r0, inv_dlnr)
+        out = np.asarray(out)
+        for row, (tid, hrow) in enumerate(zip(tids, b[1])):
+            pix, _, valid, _ = t.slot_pixels(
+                jnp.asarray(t.tile_i0[tid]), jnp.asarray(t.tile_s[tid]),
+                jnp.asarray(t.tile_S[tid]))
+            vp = np.asarray(hpx.pix2vec(t.nside, pix)).reshape(-1, 3)
+            ref = np.zeros(vp.shape[0])
+            for h in hrow[hrow >= 0]:
+                chord2 = ((vp - host["vh"][h]) ** 2).sum(axis=1)
+                x = (0.5 * np.log(np.maximum(chord2, 1e-30))
+                     + host["lnDa"][h] - ln_r0) * inv_dlnr
+                use = (x >= 0) & (x <= n_r - 1) & (chord2 <= host["crit2"][h])
+                ref += np.where(use, np.interp(x, grid, host["curves"][h]),
+                                0.0) * host["afac"][h]
+            ref = np.where(np.asarray(valid).reshape(-1), ref, 0.0)
+            np.testing.assert_allclose(out[row], ref, rtol=0,
+                                       atol=2e-5 * max(1.0, np.abs(ref).max()))
+            checked += int((ref != 0).sum())
+    assert checked > 100
+
+
+def test_tile_kernel_ignores_backend_name(monkeypatch):
+    """The tile kernel takes no backend-dependent branch: the same
+    inputs give the same sums whatever ``jax.default_backend()`` says."""
+    import jax
+    from baryonforge_tpu.ops.tiles import make_tile_deposit
+
+    t, buckets, _, pack = _paint_case()
     outs = {}
-    for lk in ("hat", "dclamp", "mxu", "gather"):
-        run = make_tile_deposit(t, n_r, mode="displace", lookup=lk)
-        outs[lk] = [np.asarray(run(b, pack, 0.0, 4.0)[1]) for b in buckets]
-    for lk in ("hat", "dclamp", "mxu"):
-        for a, b in zip(outs[lk], outs["gather"]):
-            np.testing.assert_allclose(a, b, atol=1e-5 * max(
-                1e-30, np.abs(b).max()), err_msg=f"lookup={lk}")
+    for name in ("cpu", "gpu", "tpu"):
+        monkeypatch.setattr(jax, "default_backend", lambda n=name: n)
+        run = make_tile_deposit(t, 16, mode="displace")
+        outs[name] = [np.asarray(run(b, pack, 0.0, 4.0)[1])
+                      for b in buckets]
+    for name in ("gpu", "tpu"):
+        for a, b in zip(outs[name], outs["cpu"]):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_bucket_tiles_roundtrip():

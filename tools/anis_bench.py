@@ -1,7 +1,7 @@
 """Anisotropic-paint throughput vs plain paint at NSIDE=1024.
 
-The VERDICT-2 bar: Anis within ~2x of plain paint. Both runners use the
-same tSZ TabulatedProfile (reused from the north-star checkpoint) so the
+The bar: Anis within ~2x of plain paint. Both runners use the
+same tSZ TabulatedProfile (bench.py's grid) so the
 comparison isolates the paint2 kernel cost (two log-curve lookups + one
 exp per pair, plus the Mtot canvas pre-paint).
 
@@ -27,49 +27,15 @@ def main():
     ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args()
 
-    import jax
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.join(os.path.dirname(os.path.dirname(
-                              os.path.abspath(__file__))), ".jax_cache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                          1.0)
-    except Exception:
-        pass
     import jax.numpy as jnp
     import baryonforge_tpu  # noqa: F401
-    from baryonforge_tpu import Runners, utils
-    from baryonforge_tpu import cosmo as bcosmo
-    from baryonforge_tpu.utils.Tabulate import TabulatedProfile
+    from baryonforge_tpu import Runners
+    import bench
 
     nside, n_halos = args.nside, args.halos
-    npix = 12 * nside * nside
-    cd = dict(Omega_m=0.30, Omega_b=0.045, h=0.7, sigma8=0.8, n_s=0.96,
-              w0=-1.0)
-    cosmo = bcosmo.cosmology_from_dict(cd)
-    rng = np.random.default_rng(7)
-    cat = utils.HaloLightConeCatalog(
-        ra=rng.uniform(0, 360, n_halos),
-        dec=np.degrees(np.arcsin(rng.uniform(-1, 1, n_halos))),
-        M=10 ** rng.uniform(13.0, 14.8, n_halos),
-        z=rng.uniform(0.8, 1.0, n_halos), cosmo=cd)
-    shell = utils.LightconeShell(
-        map=rng.exponential(1.0, npix).astype(np.float32), cosmo=cd,
-        redshift=0.9)
-
-    # load the checkpointed north-star tSZ table (profile stack identical)
-    from baryonforge_tpu import Profiles
-    h = 0.7
-    bpar = dict(theta_ej=4, theta_co=0.1, M_c=1e14 / h, mu_beta=0.4,
-                eta=0.3, eta_delta=0.3, tau=-1.5, tau_delta=0,
-                A=0.09 / 2, M1=2.5e11 / h, epsilon_h=0.015,
-                a=0.3, n=2, epsilon=4, p=0.3, q=0.707, gamma=2, delta=7)
-    tab = TabulatedProfile(
-        Profiles.Thermodynamic.ThermalSZ(
-            Profiles.Thermodynamic.Pressure(**bpar, proj_cutoff=100),
-            proj_cutoff=100), cosmo)
-    tab.load_table(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "_northstar_tsz_table.npz"))
+    cat, shell = bench.make_inputs(nside, n_halos, map_dtype=np.float32)
+    shell.redshift = 0.9
+    tab = bench.build_tsz_table()
 
     res = {"nside": nside, "n_halos": n_halos}
 

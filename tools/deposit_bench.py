@@ -3,12 +3,10 @@ binned buckets, full-sweep vs pruned+windowed (refine_pairs).
 
 Builds a random catalog, bins it to tiles exactly as the runner does,
 and times the per-bucket deposit loop warm and fully blocked, for
-displace and paint modes. Reports pair-evals/s so the roofline
-statement in PERFORMANCE.md is reproducible (VERDICT r3 order #5).
+displace and paint modes. Reports pair-evals/s.
 
 Usage: python tools/deposit_bench.py [--nside 1024] [--halos 20000]
                                      [--nr 64] [--nc 16]
-                                     [--lookup auto|hat|dclamp|mxu]
                                      [--paths full,windowed]
 """
 
@@ -29,7 +27,6 @@ def main():
     ap.add_argument("--halos", type=int, default=20000)
     ap.add_argument("--nr", type=int, default=64)
     ap.add_argument("--nc", type=int, default=24)
-    ap.add_argument("--lookup", default="auto")
     ap.add_argument("--modes", default="displace,paint")
     ap.add_argument("--paths", default="full,windowed")
     ap.add_argument("--shape", default=None,
@@ -41,15 +38,6 @@ def main():
                     help="compare windowed against full result")
     args = ap.parse_args()
 
-    import jax
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.join(os.path.dirname(os.path.dirname(
-                              os.path.abspath(__file__))), ".jax_cache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                          1.0)
-    except Exception:
-        pass
     import jax.numpy as jnp
     from baryonforge_tpu.ops import tiles as T
 
@@ -116,8 +104,7 @@ def main():
 
     results = {}
     for mode in args.modes.split(","):
-        run = T.make_tile_deposit(tiling, n_r, mode=mode,
-                                  lookup=args.lookup)
+        run = T.make_tile_deposit(tiling, n_r, mode=mode)
         far_full = [(t, h) for (t, h, _) in far_b]
         for path, buckets in (("full", full_buckets),
                               ("windowed", win_buckets),
@@ -143,7 +130,7 @@ def main():
                 best = min(best, time.time() - t0)
             pe = npairs(buckets) * P
             results[(mode, path)] = (best, buckets, outs)
-            print(f"{mode:9s} {path:9s} lookup={args.lookup:6s} "
+            print(f"{mode:9s} {path:9s} "
                   f"nside={args.nside}: {best * 1e3:8.1f} ms  "
                   f"{pe / best / 1e9:6.2f} G pair-evals/s "
                   f"({npairs(buckets) / 1e6:.1f} M padded pairs)")

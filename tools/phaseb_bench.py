@@ -25,56 +25,15 @@ def main():
     ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args()
 
-    import jax
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.join(os.path.dirname(os.path.dirname(
-                              os.path.abspath(__file__))), ".jax_cache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                          1.0)
-    except Exception:
-        pass
     import jax.numpy as jnp
     import baryonforge_tpu  # noqa: F401
-    from baryonforge_tpu import Profiles, Runners, utils
-    from baryonforge_tpu import cosmo as bcosmo
-    from baryonforge_tpu.Profiles.BaryonCorrection import Baryonification2D
-    from bench import _TABLE_BUILDER
-    import subprocess
-    import tempfile
+    from baryonforge_tpu import Runners
+    import bench
 
     nside, n_halos = args.nside, args.halos
     npix = 12 * nside * nside
-
-    h = 0.7
-    cosmo_dict = dict(Omega_m=0.30, Omega_b=0.045, h=h, sigma8=0.8,
-                      n_s=0.96, w0=-1.0)
-    cosmo = bcosmo.cosmology_from_dict(cosmo_dict)
-    bpar = dict(theta_ej=4, theta_co=0.1, M_c=1e14 / h, mu_beta=0.4,
-                eta=0.3, eta_delta=0.3, tau=-1.5, tau_delta=0,
-                A=0.09 / 2, M1=2.5e11 / h, epsilon_h=0.015,
-                a=0.3, n=2, epsilon=4, p=0.3, q=0.707, gamma=2, delta=7)
-
-    rng = np.random.default_rng(7)
-    cat = utils.HaloLightConeCatalog(
-        ra=rng.uniform(0, 360, n_halos),
-        dec=np.degrees(np.arcsin(rng.uniform(-1, 1, n_halos))),
-        M=10 ** rng.uniform(13.0, 14.8, n_halos),
-        z=rng.uniform(0.8, 1.0, n_halos), cosmo=cosmo_dict)
-    shell = utils.LightconeShell(
-        map=rng.exponential(1.0, npix).astype(np.float32),
-        cosmo=cosmo_dict)
-
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "table.npz")
-        env = dict(os.environ, BFG_TABLE_PATH=path)
-        subprocess.run([sys.executable, "-c", _TABLE_BUILDER], env=env,
-                       check=True, cwd=os.path.dirname(os.path.dirname(
-                           os.path.abspath(__file__))))
-        DMO = Profiles.DarkMatterOnly(**bpar, proj_cutoff=100)
-        DMB = Profiles.DarkMatterBaryon(**bpar, proj_cutoff=100)
-        model = Baryonification2D(DMO, DMB, cosmo, epsilon_max=20)
-        model.load_table(path)
+    cat, shell = bench.make_inputs(nside, n_halos, map_dtype=np.float32)
+    model = bench.build_displacement_table()
 
     rdt = jnp.float32
     runner = Runners.BaryonifyShell(cat, shell, epsilon_max=20,

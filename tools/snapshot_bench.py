@@ -1,4 +1,4 @@
-"""BaryonifySnapshot throughput at >=1e6 particles (VERDICT r3 order #7).
+"""BaryonifySnapshot throughput at >=1e6 particles.
 
 Reference analog: BaryonForge's KDTree snapshot runner
 (reference Runners/SnapshotRunner.py:176-275) loops halos on the host —

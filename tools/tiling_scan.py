@@ -1,7 +1,7 @@
 """Host-side scan: padded-pair work (padded pairs x P) of the tiled
 deposit for candidate SkyTiling shapes, at north-star halo populations.
 
-The tile kernel's VPU work is (padded (tile, halo) pairs) x (P pixels per
+The tile kernel's work is (padded (tile, halo) pairs) x (P pixels per
 tile); for small discs (paint eps_max=5) most of a 16x32 tile is masked
 waste. This tool reproduces the north-star catalog (seed 7) host-side and
 reports the work term for several (ring_block, seg_slots) shapes, for the
